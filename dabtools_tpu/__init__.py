@@ -1,8 +1,8 @@
-"""dabtools_tpu: a TPU-native DAB/DAB+ receiver framework.
+"""dabtools_tpu: a DAB/DAB+ receiver framework in JAX.
 
 The capabilities of linuxstb/dabtools, redesigned for JAX/XLA/Pallas on
-TPU meshes.  See README.md for the architecture and SURVEY.md for the
-reference analysis this build follows.
+GPUs (one card or a mesh of them).  See README.md for the architecture
+and SURVEY.md for the reference analysis this build follows.
 
 Quick start::
 

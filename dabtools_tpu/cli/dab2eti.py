@@ -70,7 +70,7 @@ def iter_samples(path: str, fmt: str):
 
 def _wideband(args, mode, n_frames) -> int:
     """Wideband capture -> channelizer (N2) -> one ETI/EDI file per Band
-    III block under the -o directory.  One TPU pass decodes every
+    III block under the -o directory.  One device pass decodes every
     ensemble in the captured band (BASELINE config #4 as a CLI surface;
     the batched device path is `parallel.channel` — here each block runs
     through its own streaming DabReceiver for per-block sync state)."""
@@ -149,7 +149,7 @@ def _wideband(args, mode, n_frames) -> int:
 
 def main(argv=None) -> int:
     from dabtools_tpu.utils.jitcache import enable_persistent_cache
-    enable_persistent_cache()   # fast, weather-proof startup
+    enable_persistent_cache()
     p = argparse.ArgumentParser(
         prog="dab2eti", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)

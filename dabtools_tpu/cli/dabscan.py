@@ -2,7 +2,7 @@
 
 Channelizes every Band III block that fits inside the capture bandwidth
 (N2) and runs FIC acquisition on each candidate (capability beyond the
-single-block reference — one TPU pass scans a whole band segment).
+single-block reference — one device pass scans a whole band segment).
 
 Usage:
   python -m dabtools_tpu.cli.dabscan --center 184.5e6 --rate 8.192e6 cap.cf32
@@ -21,7 +21,7 @@ log = logging.getLogger("dabtools_tpu.dabscan")
 
 def main(argv=None) -> int:
     from dabtools_tpu.utils.jitcache import enable_persistent_cache
-    enable_persistent_cache()   # fast, weather-proof startup
+    enable_persistent_cache()
     p = argparse.ArgumentParser(prog="dabscan", description=__doc__)
     p.add_argument("input", help="wideband IQ capture (u8 or cf32), '-' stdin")
     p.add_argument("--center", type=float, required=True,
@@ -87,12 +87,10 @@ def main(argv=None) -> int:
         print(f"capture too short: need {need} samples per block after "
               f"channelization, have {streams.shape[1]}", file=sys.stderr)
         return 1
-    from dabtools_tpu.utils.retry import call_with_retries
-    out, _, _ = call_with_retries(
-        channel_parallel_block,
+    out, _, _ = channel_parallel_block(
         jnp.asarray(streams[:, :need]), {}, jnp.asarray(0, jnp.int32),
         ensemble=None, n_frames=n_frames)
-    out = call_with_retries(jax.device_get, out)
+    out = jax.device_get(out)
     fib_bytes_all = np.asarray(out["fib_bytes"])    # (C, B, 12, 32)
     null_ratio = np.asarray(out["null_ratio"])
     # PRS channel sounding per block (SFN/multipath view): us RMS.

@@ -23,39 +23,25 @@ import numpy as np
 
 from dabtools_tpu import constants as C
 from dabtools_tpu.utils.crc import crc16_ccitt, firecode
-from dabtools_tpu.utils.gf256 import rs_decode, rs_encode
-
-_RS_FALLBACK_WARNED = False
+from dabtools_tpu.utils.gf256 import rs_encode
 
 log = logging.getLogger("dabtools_tpu.dabplus")
 
 
 def _rs_decode_columns(table: np.ndarray):
-    """RS-decode a superframe's columns.
-
-    The pure-NumPy codec runs at only ~0.7x real-time per 128 kbit/s
-    service (measured); the jitted batch decoder (`ops.rs`) is ~100x
-    faster even on the CPU backend, so it is the default with the NumPy
-    codec as fallback/reference.
+    """RS-decode a superframe's columns with the jitted batch decoder
+    (`ops.rs`); the pure-NumPy codec (``utils.gf256.rs_decode``) is the
+    tests' reference.
     """
-    try:
-        import jax
-        import jax.numpy as jnp
-        from dabtools_tpu.ops.rs import rs_decode_batch
-        # Pin to the CPU backend: this is a host byte-stream stage (the
-        # data rate is kB/120ms), and the accelerator backend may belong
-        # to the main pipeline or be unavailable.
-        with jax.default_device(jax.local_devices(backend="cpu")[0]):
-            data, counts = rs_decode_batch(jnp.asarray(table))
-            return np.asarray(data), np.asarray(counts)
-    except Exception as e:  # pragma: no cover - jax unavailable/broken
-        global _RS_FALLBACK_WARNED
-        if not _RS_FALLBACK_WARNED:
-            _RS_FALLBACK_WARNED = True
-            logging.getLogger("dabtools_tpu.dabplus").warning(
-                "jitted RS decoder unavailable (%s); falling back to the "
-                "~100x slower NumPy codec", e)
-        return rs_decode(table)
+    import jax
+    import jax.numpy as jnp
+
+    from dabtools_tpu.ops.rs import rs_decode_batch
+    # Pin to the CPU backend: this is a host byte-stream stage (the data
+    # rate is kB/120ms), and the accelerator belongs to the main pipeline.
+    with jax.default_device(jax.local_devices(backend="cpu")[0]):
+        data, counts = rs_decode_batch(jnp.asarray(table))
+        return np.asarray(data), np.asarray(counts)
 
 # (dac_rate, sbr_flag) -> (num_aus, au_start[0])
 _AU_TABLE = {(0, 1): (2, 5), (1, 1): (3, 6), (0, 0): (4, 8), (1, 0): (6, 11)}

@@ -19,7 +19,7 @@ against a real capture, docs/INTEROP.md]:
   that address.
 * Address 0 is reserved for padding packets, which receivers discard.
 
-All host-side byte work (like the ETI assembler): the TPU's job ended at
+All host-side byte work (like the ETI assembler): the device's job ended at
 the convolutional decode of the sub-channel; packets are control-plane.
 """
 

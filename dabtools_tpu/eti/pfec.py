@@ -25,7 +25,7 @@ docs/INTEROP.md row 26]:
   Address(10) = 1022, rfa(2)) + 22 RS-table bytes.  No packet CRC — the
   RS code itself protects these bytes.
 
-The TPU's job ended at the convolutional decode of the sub-channel;
+The device's job ended at the convolutional decode of the sub-channel;
 like `eti.packet`, this layer is host-side byte work (control plane) and
 defaults to the NumPy codec (12 codewords per 2.5 kB is far below jit
 dispatch overhead).  For bulk offline extraction pass

@@ -2,4 +2,4 @@
 
 Only the RTL-SDR path is implemented; the Psion WaveFinder (R3) is out of
 scope (discontinued USB hardware whose value was doing OFDM demod in
-hardware — the TPU does it better in software)."""
+hardware — the accelerator does it better in software)."""

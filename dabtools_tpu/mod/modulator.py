@@ -216,3 +216,41 @@ class Modulator:
             for f in range(n_frames)
         ]
         return np.concatenate(out)
+
+
+def modulate_ensemble(ens, n_frames: int, seed: int = 0,
+                      dabplus_subch: int | None = None):
+    """Modulate ``n_frames`` of ensemble ``ens`` (Mode I) carrying random
+    payloads drawn from ``seed``; its own FIBs carry the MCI.
+
+    Sub-channel ``dabplus_subch`` (optional) carries real DAB+
+    superframes (firecode + RS(120,110) + AU CRCs) instead of random
+    bytes.  Returns ``(iq complex64, payload bytes {subchid: (n_cifs,
+    data_bytes) uint8}, access units of the DAB+ sub-channel in order)``.
+    """
+    from dabtools_tpu.eti.dabplus import SuperframeBuilder
+    from dabtools_tpu.fic.fig import build_fibs_for_ensemble
+
+    rng = np.random.default_rng(seed)
+    n_cifs = n_frames * C.MODE_I.n_cifs
+    order = [s.subchid for s in ens.sorted_subchannels()]
+    payloads = {sc: np.unpackbits(rng.integers(
+        0, 256, (n_cifs, ens.subchannel(sc).data_bytes), dtype=np.uint8),
+        axis=-1) for sc in order}
+    aus_flat: list[bytes] = []
+    if dabplus_subch is not None:
+        sfb = SuperframeBuilder(ens.subchannel(dabplus_subch).bitrate_kbps)
+        rows = []
+        for _ in range(n_cifs // C.SUPERFRAME_FRAMES + 1):
+            aus = [rng.integers(0, 256, sz, dtype=np.uint8).tobytes()
+                   for sz in sfb.au_sizes()]
+            aus_flat += aus
+            rows.append(sfb.build(aus))
+        payloads[dabplus_subch] = np.unpackbits(
+            np.concatenate(rows)[:n_cifs], axis=-1)
+    mod = Modulator([SubchannelSource(s.start_cu, s.profile)
+                     for s in ens.sorted_subchannels()])
+    x = mod.frames(n_frames, lambda f: build_fibs_for_ensemble(ens, f),
+                   lambda f, i: payloads[order[i]][f * 4:(f + 1) * 4])
+    return (x, {sc: np.packbits(payloads[sc], axis=-1) for sc in order},
+            aus_flat)

@@ -3,7 +3,7 @@
 // The reference (linuxstb/dabtools) is pure C; its byte-level hot paths
 // (CRCs in upstream:dab.c, the IQ FIFO in upstream:sdr_fifo.c, ETI frame
 // assembly in upstream:dab.c eti_build, FSYNC hunting in upstream:
-// eti2mpa.c) have native equivalents here so the TPU framework's host side
+// eti2mpa.c) have native equivalents here so the framework's host side
 // is not Python-bound at production stream rates.  Loaded via ctypes
 // (dabtools_tpu/utils/native.py); every function has a NumPy fallback and
 // the test suite cross-checks the two.

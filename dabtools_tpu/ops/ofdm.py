@@ -4,11 +4,11 @@ Reference counterpart: the per-symbol loop in `upstream:input_sdr.c`
 (`dab_demod`, R7): drop guard, 2048-pt FFT (fftw3f), conjugate multiply
 with the previous symbol, frequency deinterleave, QPSK soft bits.
 
-TPU-first redesign: all symbols of a whole *block* of frames are
-demodulated as one tensor program — a single gather builds the
+Redesigned for the accelerator: all symbols of a whole *block* of frames
+are demodulated as one tensor program — a single gather builds the
 (frames, 76, 2048) window tensor (with per-frame traced start offsets, so
 data-dependent sync becomes *data*, not control flow), one batched FFT runs
-on the XLA TPU FFT, and the differential demap + deinterleave + soft-bit
+on XLA's FFT, and the differential demap + deinterleave + soft-bit
 extraction are fused elementwise/gather ops.  Host<->device crossing happens
 once per block, not per symbol (SURVEY.md s3.4).
 """
@@ -69,8 +69,8 @@ def gather_symbol_windows(x: jnp.ndarray, frame_starts: jnp.ndarray,
     only corrects the frame *start*).
 
     ``layout`` (or ``DABTOOLS_WINDOW_GATHER``) picks the extraction
-    realization — identical values (same sample indices), different TPU
-    gather structure; A/B'd on hardware by tools/window_gather_probe.py:
+    realization — identical values (same sample indices), different
+    gather structure:
 
       twostage — one row-slice gather of whole frame windows, then the
                  (76, 2048) local windows gathered WITHIN each frame
@@ -94,11 +94,10 @@ def gather_symbol_windows(x: jnp.ndarray, frame_starts: jnp.ndarray,
     # steps don't corrupt the DQPSK differential (a 1-sample step is
     # 2.4 rad at the band edge!).
     #
-    # TPU layout note: ONE flat per-ELEMENT gather of the (B, S, T) window
-    # tensor from the block runs at ~0.3 GB/s on v5e (measured — it
-    # dominated the whole pipeline at 73 ms/block); both layouts below
-    # keep whole-window ROW slices as the gather unit, which runs ~40x
-    # faster, and the samples/indices are identical either way.
+    # Layout note: both layouts below keep whole-window ROW slices as the
+    # gather unit instead of ONE flat per-ELEMENT gather of the (B, S, T)
+    # window tensor (which was the slow path on the accelerator this was
+    # first written for); the samples/indices are identical either way.
     # No left margin needed: the smallest in-frame offset is
     # null+guard-MARGIN > 2500, so the slice begins exactly at the
     # frame start (identical clamping behavior to the old flat gather).
@@ -119,7 +118,7 @@ def gather_symbol_windows(x: jnp.ndarray, frame_starts: jnp.ndarray,
 
     # window_slices (not a plain vmapped dynamic_slice) so that an OUTER
     # channel vmap (config 3) collapses into the sample axis instead of
-    # batching the gather operand off the TPU fast path.
+    # batching the gather operand (see ops.slicing).
     if layout == "persym":
         win = window_slices(
             x, starts.reshape(-1), mode.fft_size).reshape(

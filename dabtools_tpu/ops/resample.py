@@ -7,9 +7,11 @@ converts by L/M with a polyphase FIR:
 
   y[n] = sum_k h[k*L + phase(n)] * x[floor(n*M/L) - k]
 
-TPU-first: the L polyphase branches become one batched matmul — gather the
-input into (n_out, taps_per_phase) windows, multiply by the per-output
-phase's tap row.  Streaming keeps an input tail + output-phase offset so
+On the device the L polyphase branches become one batched product —
+gather the input into (n_out, taps_per_phase) windows, multiply by the
+per-output phase's tap row elementwise and sum in f32 (no matmul, so no
+reduced-precision TF32 path on a GPU; only the summation order differs
+from the CPU's).  Streaming keeps an input tail + output-phase offset so
 chunk boundaries are seamless (same overlap-save discipline as the
 channelizer, N2).
 """

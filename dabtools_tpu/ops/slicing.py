@@ -1,24 +1,23 @@
-"""Dynamic window extraction that stays on the TPU gather fast path
-under ANY vmap nesting.
+"""Dynamic window extraction as whole-window row slices under ANY vmap
+nesting.
 
 The receiver extracts dynamic-start windows from the sample block
 everywhere (OFDM symbol windows, the PRS matched-filter window, the
-guard-correlation windows).  The fast realization on TPU is the one
+guard-correlation windows).  The realization kept here is the one
 ``jax.vmap(lax.dynamic_slice)`` lowers to: a gather with an UNBATCHED
-operand and whole-window ``slice_sizes`` — contiguous row copies.
-Measured on v5e (see the layout note in ``ops.ofdm``): an
-element-indexed gather from the block runs at ~0.3 GB/s, ~40x slower
-than the row-slice form.
+operand and whole-window ``slice_sizes`` — contiguous row copies,
+rather than an element-indexed gather from the block (the slow path on
+the accelerator this was first written for; whether the distinction
+matters on a GPU is not measured yet).
 
 The trap is batching the OPERAND: ``jax.vmap`` over a channel axis (the
 config-3 channel-parallel receiver) rewrites the same dynamic_slice
-into a gather over the now-(channels, n)-shaped block — off the fast
-path.  ``window_slices`` fixes that with a ``custom_vmap`` rule that
+into a gather over the now-(channels, n)-shaped block.
+``window_slices`` fixes that with a ``custom_vmap`` rule that
 COLLAPSES every mapped axis into the sample axis instead: the samples
 flatten to one (channels*n,) vector, starts get per-channel base
 offsets, and the call recurses — so the lowered gather keeps an
-unbatched operand at every nesting depth.  The same collapse pattern as
-the Pallas Viterbi's lane-batch rule (``viterbi_pallas4``).
+unbatched operand at every nesting depth.
 
 Out-of-range starts follow the exact ``lax.dynamic_slice`` contract the
 unbatched path has always had — one NumPy-style wrap of negative

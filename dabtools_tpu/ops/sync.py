@@ -3,10 +3,10 @@ PRS matched filter for fine time + integer CFO (N3).
 
 Reference counterpart: `upstream:input_sdr.c` `dab_coarse_time_sync` /
 `dab_fine_time_sync` (R5) and the PRS correlation used by the WaveFinder AFC
-(R3).  TPU-first redesign: alignment is computed *as data* inside jit
-(argmin/argmax + dynamic_slice), never as host control flow; the PRS search
-evaluates all (integer-CFO, timing) hypotheses as one batched FFT
-correlation.
+(R3).  Redesigned for the accelerator: alignment is computed *as data*
+inside jit (argmin/argmax + dynamic_slice), never as host control flow;
+the PRS search evaluates all (integer-CFO, timing) hypotheses as one
+batched FFT correlation.
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ needs substituting if a real capture disagrees.  The detector itself —
 windowed FFT, adjacent-pair conjugate products, top-4-of-8 group solve —
 is position-table-agnostic.
 
-TPU notes: detection is one batched 2048-pt FFT over the block's null
+Device notes: detection is one batched 2048-pt FFT over the block's null
 symbols plus a (24, 8) gather — negligible next to the demod path, and
 the pair *product* |X_k · X*_{k+1}| makes the metric invariant to the
 window's placement inside the (cyclically extended) TII waveform.

@@ -7,8 +7,8 @@ every constraint-satisfying row (the standard's row is guaranteed to be
 among them), and the correct one is the only layout whose depuncture
 keeps the Viterbi decode aligned — a wrong PI split shifts every
 transmitted bit after the first divergent region, collapsing the path
-metric.  TPU-first shape: all candidates decode in ONE batched Viterbi
-call (full MXU lane occupancy) rather than a Python loop.
+metric.  All candidates decode in ONE batched Viterbi call (one device
+launch over every candidate's lanes) rather than a Python loop.
 
 Reference counterpart: none — upstream hard-codes its UEP tables
 (SURVEY.md s2a R14); this subsystem exists precisely because this build

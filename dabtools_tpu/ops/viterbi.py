@@ -1,28 +1,28 @@
 """Batched soft-decision Viterbi for the DAB K=7 rate-1/4 code (N6).
 
 Reference counterpart: `upstream:viterbi.c` (R12, a scalar C ACS loop with
-traceback).  This is NOT a translation — the trellis is reformulated for
-TPU:
+traceback).  This is NOT a translation — the trellis is batched over
+codewords and written gather-free:
 
-* Branch metrics for ALL transitions of ALL time steps are one matmul:
-  a constant ``W in {+1,-1}^(128 x 4)`` maps the 4 soft bits of a step to
-  the 128 (state, input) transition metrics, so the whole codeword's branch
-  metrics are ``soft @ W.T`` — an MXU op, hoisted out of the scan.
+* Branch metrics for ALL transitions of ALL time steps are computed up
+  front as exact signed sums of each step's 4 soft bits in a fixed order,
+  ``((±s0 ±s1) ±s2) ±s3`` — the same order the GPU kernel uses, so the two
+  agree bit for bit and no matmul precision (TF32) enters.
 * The ACS recursion needs NO gathers: with path metrics viewed as
   ``pm[c, b]`` (c = state>>1, b = state&1), the two predecessors of targets
   ``u*32 + c`` are exactly ``pm[c, 0]`` and ``pm[c, 1]`` — a reshape +
-  transpose, which on TPU is a lane shuffle, not a memory gather.
-* The time recursion is a `lax.scan` carrying ``pm`` (kept in
-  registers/VMEM by XLA); decisions stream out as uint8.
+  transpose.
+* The time recursion is a `lax.scan` carrying ``pm``; decisions stream out
+  as uint8.
 * Traceback is a second (reverse) scan; the per-step "pick my decision bit"
   is a one-hot reduction, again gather-free.
 
 Conventions (shared with mod.convcode — see its docstring):
 soft > 0 means coded bit 0; erasures (punctured positions) are exactly 0.
 
-A Pallas kernel with identical semantics lives in ``viterbi_pallas.py``;
-this XLA version is the always-available reference implementation and is
-what the tests pin down.
+On a GPU the decode runs as the Pallas kernel in ``viterbi_gpu.py``
+(identical semantics); this XLA version is the reference everywhere else
+and what the tests pin the kernel to.
 """
 
 from __future__ import annotations
@@ -38,33 +38,11 @@ from dabtools_tpu.mod.convcode import output_table
 
 NEG_INF = -1e30
 
-# Process-wide override of the "auto" implementation choice, set by
-# ``force_impl`` (e.g. the receiver's fallback after a persistent Pallas
-# kernel failure).  Callers that jit around viterbi_decode must clear
-# their jit caches after flipping this — resolution happens at trace time.
-_FORCED: str | None = None
 
-
-def force_impl(impl: str | None) -> None:
-    """Override auto implementation choice ("pallas"/"xla"; None = reset)."""
-    global _FORCED
-    _FORCED = impl
-
-
-def resolved_impl() -> str:
-    """What ``impl="auto"`` resolves to right now.
-
-    Priority: ``force_impl`` > ``DABTOOLS_VITERBI`` env var > backend
-    default — **Pallas on TPU** (the production path; BASELINE names this
-    kernel), XLA elsewhere (interpret-mode Pallas would be slow on CPU).
-    """
-    import os
-    if _FORCED is not None:
-        return _FORCED
-    env = os.environ.get("DABTOOLS_VITERBI")
-    if env:
-        return env
-    return "pallas" if jax.default_backend() == "tpu" else "xla"
+def use_kernel() -> bool:
+    """The one implementation choice: the GPU kernel on a GPU, the XLA
+    scan on every other backend."""
+    return jax.default_backend() == "gpu"
 
 
 @functools.cache
@@ -79,55 +57,6 @@ def transition_matrix() -> np.ndarray:
                 reg = (u << 6) | (2 * c + b)
                 w[4 * c + 2 * b + u] = 1.0 - 2.0 * table[reg]
     return w
-
-
-@functools.cache
-def acs_radix4_matrices():
-    """Radix-4 ACS operators: two trellis steps fused (Pallas N6 fast path).
-
-    After inputs (u1, u2), state s reaches t = u2<<5 | u1<<4 | s>>2, so
-    target t has 4 predecessors ``4*(t&15)+p``.  ``PU4`` (256, 64) row
-    ``p*64+t`` picks predecessor p of target t; ``WS4`` (256, 8) holds the
-    +/-1 pattern of the 8 coded bits along that 2-step path (first step's
-    4 bits, then the second's).
-    """
-    table = output_table()
-    pu4 = np.zeros((256, 64), dtype=np.float32)
-    ws4 = np.empty((256, 8), dtype=np.float32)
-    for t in range(64):
-        u2, u1 = t >> 5, (t >> 4) & 1
-        for p in range(4):
-            pred = 4 * (t & 15) + p
-            mid = (u1 << 5) | (pred >> 1)
-            reg1 = (u1 << 6) | pred
-            reg2 = (u2 << 6) | mid
-            r = p * 64 + t
-            pu4[r, pred] = 1.0
-            ws4[r, :4] = 1.0 - 2.0 * table[reg1]
-            ws4[r, 4:] = 1.0 - 2.0 * table[reg2]
-    return pu4, ws4
-
-
-@functools.cache
-def acs_matmul_matrices():
-    """Target-major ACS operators for the matmul formulation (Pallas N6).
-
-    ``PU`` (128, 64): rows 0..63 pick predecessor ``2t mod 64`` of target t,
-    rows 64..127 pick ``2t mod 64 + 1`` — so ``PU @ pm`` yields both
-    predecessors' metrics, stacked, with NO gathers/transposes.
-    ``WS`` (128, 4): the +/-1 coded-bit pattern of the corresponding
-    transition, so ``WS @ soft_t`` is the matching branch-metric stack.
-    """
-    table = output_table()
-    pu = np.zeros((128, 64), dtype=np.float32)
-    ws = np.empty((128, 4), dtype=np.float32)
-    for r in range(128):
-        t = r % 64
-        pred = (2 * t) % 64 + (1 if r >= 64 else 0)
-        u = t >> 5
-        pu[r, pred] = 1.0
-        ws[r] = 1.0 - 2.0 * table[(u << 6) | pred]
-    return pu, ws
 
 
 def _acs_scan(bm: jnp.ndarray, pm0: jnp.ndarray):
@@ -169,7 +98,17 @@ def _traceback(decisions: jnp.ndarray) -> jnp.ndarray:
     return bits_rev[::-1].transpose(1, 0)
 
 
-def viterbi_decode(soft: jnp.ndarray, impl: str = "auto"):
+def branch_metrics(soft: jnp.ndarray) -> jnp.ndarray:
+    """(batch, T, 4) soft bits -> (batch, T, 128) transition metrics, row
+    ``4*c + 2*b + u`` as in :func:`transition_matrix`: the exact signed
+    sum ``((±s0 ±s1) ±s2) ±s3`` (the GPU kernel's order)."""
+    neg = jnp.asarray(transition_matrix() < 0)               # (128, 4)
+    term = [jnp.where(neg[:, k], -soft[..., k, None], soft[..., k, None])
+            for k in range(4)]
+    return ((term[0] + term[1]) + term[2]) + term[3]
+
+
+def viterbi_decode(soft: jnp.ndarray, *, interpret: bool = False):
     """Decode a batch of mother codewords.
 
     ``soft``: (batch, 4*(n+6)) float32, positive => coded bit 0, 0 = erasure.
@@ -177,38 +116,27 @@ def viterbi_decode(soft: jnp.ndarray, impl: str = "auto"):
     stripped); metric (batch,) float32 — the winning path's correlation with
     the received soft bits (a BER/confidence proxy, SURVEY.md s5.5).
 
-    ``impl``: "xla" (lax.scan), "pallas" (the N6 kernel), or "auto" —
-    see :func:`resolved_impl` (Pallas is the production default on TPU;
-    the receiver falls back to XLA if the kernel fails persistently).
+    Runs the GPU kernel on a GPU (:func:`use_kernel`) and the XLA scan
+    elsewhere; ``interpret=True`` (tests only) runs the kernel in the
+    Pallas interpreter on any backend.
     """
-    if impl == "auto":
-        impl = resolved_impl()
-    if impl == "pallas":
-        soft = jnp.asarray(soft, dtype=jnp.float32)
-        squeeze1 = soft.ndim == 1
-        if squeeze1:
-            soft = soft[None]
-        interp = jax.default_backend() != "tpu"   # Mosaic needs real HW
-        if (soft.shape[-1] // 4) % 2 == 0:
-            from dabtools_tpu.ops.viterbi_pallas4 import viterbi_decode_pallas4
-            bits, metric = viterbi_decode_pallas4(soft, interpret=interp)
-        else:
-            from dabtools_tpu.ops.viterbi_pallas import viterbi_decode_pallas
-            bits, metric = viterbi_decode_pallas(soft, interpret=interp)
-        return (bits[0], metric[0]) if squeeze1 else (bits, metric)
     soft = jnp.asarray(soft, dtype=jnp.float32)
-    if soft.ndim == 1:
+    squeeze = soft.ndim == 1
+    if squeeze:
         soft = soft[None]
-        squeeze = True
+    if interpret or use_kernel():
+        from dabtools_tpu.ops.viterbi_gpu import viterbi_decode_gpu
+        bits, metric = viterbi_decode_gpu(soft, interpret=interpret)
     else:
-        squeeze = False
+        bits, metric = viterbi_decode_xla(soft)
+    return (bits[0], metric[0]) if squeeze else (bits, metric)
+
+
+def viterbi_decode_xla(soft: jnp.ndarray):
     batch, n4 = soft.shape
     assert n4 % 4 == 0, "mother codeword length must be a multiple of 4"
     t_steps = n4 // 4
-
-    w = jnp.asarray(transition_matrix())                     # (128, 4)
-    bm = jnp.einsum("btf,rf->btr", soft.reshape(batch, t_steps, 4), w,
-                    preferred_element_type=jnp.float32)
+    bm = branch_metrics(soft.reshape(batch, t_steps, 4))
     bm = bm.reshape(batch, t_steps, 32, 2, 2).transpose(1, 0, 2, 3, 4)
 
     pm0 = jnp.full((batch, 64), NEG_INF, dtype=jnp.float32)
@@ -216,60 +144,45 @@ def viterbi_decode(soft: jnp.ndarray, impl: str = "auto"):
     pm_final, decisions = _acs_scan(bm, pm0)
     bits = _traceback(decisions)
 
-    info = bits[:, : t_steps - C.TAIL_BITS]
-    metric = pm_final[:, 0]
-    if squeeze:
-        return info[0], metric[0]
-    return info, metric
+    return bits[:, : t_steps - C.TAIL_BITS], pm_final[:, 0]
 
 
-def viterbi_decode_ragged(softs, impl: str = "auto"):
-    """Decode several codeword batches of (possibly) DIFFERENT lengths as
-    ONE kernel dispatch where the backend supports it.
+def viterbi_decode_ragged(softs, *, interpret: bool = False):
+    """Decode several codeword batches of (possibly) DIFFERENT lengths.
 
     ``softs``: sequence of (batch_i, 4*T_i) soft-bit arrays (same
     conventions as :func:`viterbi_decode`).  Returns a list of
     ``(bits_i, metric_i)`` in the same order, each bit-identical to
-    ``viterbi_decode(softs[i], impl)``.
+    ``viterbi_decode(softs[i])``.
 
-    On the radix-4 Pallas path the batches are right-padded to the
-    longest T, concatenated along lanes, and decoded with a per-lane
-    length vector — so a heterogeneous mux (FIC + several UEP/EEP
-    profile groups) costs ONE ACS chain instead of one per group.  The
-    TPU win is structural: lane batches round up to 128, so e.g. the
-    flagship's 9x64-CIF MSC batch (576 lanes -> padded 640) absorbs the
-    64 FIC codewords literally for free.  Reference counterpart: none —
+    On the GPU kernel the batches are right-padded to the longest T,
+    concatenated along lanes, and decoded with a per-lane length vector
+    — so a heterogeneous mux (FIC + several UEP/EEP profile groups) costs
+    ONE launch instead of one per group.  Reference counterpart: none —
     upstream (R9/R15) decodes each codeword in a scalar C loop.
 
-    Falls back to per-batch calls on the XLA/radix-2 paths (an odd T in
-    the mix forces radix-2) — semantically identical, just N dispatches.
+    The XLA scan decodes each batch on its own (same results, one scan
+    per batch).
     """
     softs = [jnp.asarray(s, jnp.float32) for s in softs]
-    if not softs:
-        return []
     if any(s.ndim != 2 for s in softs):
         raise ValueError("each batch must be (batch_i, 4*T_i) soft bits")
-    if impl == "auto":
-        impl = resolved_impl()
+    if not softs:
+        return []
+    if not (interpret or use_kernel()):
+        return [viterbi_decode_xla(s) for s in softs]
+    from dabtools_tpu.ops.viterbi_gpu import viterbi_decode_gpu
     ts = [s.shape[-1] // 4 for s in softs]
-    if (impl == "pallas" and len(softs) > 1
-            and all(t % 2 == 0 for t in ts)):
-        from dabtools_tpu.ops.viterbi_pallas4 import viterbi_decode_pallas4
-        n4_max = max(s.shape[-1] for s in softs)
-        soft = jnp.concatenate(
-            [jnp.pad(s, ((0, 0), (0, n4_max - s.shape[-1])))
-             for s in softs], axis=0)
-        lengths = np.concatenate(
-            [np.full(s.shape[0], t, np.int32)
-             for s, t in zip(softs, ts)])
-        interp = jax.default_backend() != "tpu"
-        bits, metric = viterbi_decode_pallas4(soft, interpret=interp,
-                                              lengths=lengths)
-        out, o = [], 0
-        for s, t in zip(softs, ts):
-            b = s.shape[0]
-            out.append((bits[o: o + b, : t - C.TAIL_BITS],
-                        metric[o: o + b]))
-            o += b
-        return out
-    return [viterbi_decode(s, impl=impl) for s in softs]
+    n4_max = max(s.shape[-1] for s in softs)
+    soft = jnp.concatenate(
+        [jnp.pad(s, ((0, 0), (0, n4_max - s.shape[-1]))) for s in softs],
+        axis=0)
+    lengths = np.concatenate(
+        [np.full(s.shape[0], t, np.int32) for s, t in zip(softs, ts)])
+    bits, metric = viterbi_decode_gpu(soft, lengths, interpret=interpret)
+    out, o = [], 0
+    for s, t in zip(softs, ts):
+        b = s.shape[0]
+        out.append((bits[o: o + b, : t - C.TAIL_BITS], metric[o: o + b]))
+        o += b
+    return out

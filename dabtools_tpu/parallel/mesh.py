@@ -3,8 +3,10 @@
 The reference is a single Linux process (SURVEY.md s5.8); here the runtime
 substrate is a `jax.sharding.Mesh` whose axes the receiver pipelines shard
 over: ``channels`` (independent ensembles, DP-like) x ``time`` (time blocks
-of one stream, SP-like).  Collectives ride ICI within a slice and DCN
-across hosts — supplied by XLA, not a custom transport.
+of one stream, SP-like).  The mesh only reshapes ``jax.devices()``: the
+cards of one host reach each other all to all (NVLink), so the axes follow
+the algorithm, not a topology.  Collectives are XLA's (NCCL on GPUs), not
+a custom transport.
 """
 
 from __future__ import annotations
@@ -40,12 +42,12 @@ def make_receiver_mesh(n_channels: int | None = None,
 def init_multihost(coordinator: str | None = None,
                    num_processes: int | None = None,
                    process_id: int | None = None) -> None:
-    """`jax.distributed.initialize` wrapper for multi-host pod slices.
+    """`jax.distributed.initialize` wrapper for multi-process runs.
 
-    On single-host runs this is a no-op; on a pod slice, call before any
-    backend use (all hosts), then build the mesh over ``jax.devices()``
-    (which spans hosts).  Halo exchange between shards on different hosts
-    then rides DCN automatically.
+    With one process this is a no-op; otherwise call it before any
+    backend use (every process), then build the mesh over
+    ``jax.devices()`` (which spans processes).  Halo exchange between
+    shards in different processes then goes through XLA's collectives.
     """
     if num_processes is None or num_processes <= 1:
         return

@@ -8,7 +8,7 @@ same ring pattern as context-parallel attention, minus the softmax algebra.
 The warmup re-primes the 16-CIF time-deinterleaver locally (W*n_cifs >= 16),
 turning the only sequential cross-shard dependency into redundant compute:
 shards are then fully independent, so scaling is limited only by the halo
-bytes (LH+RH samples) over ICI/DCN.
+bytes (LH+RH samples) between devices.
 
 Boundary shards take their halo from explicit ``prefix``/``suffix`` arrays
 (the streaming host supplies the previous span's tail / next span's head;

@@ -329,7 +329,7 @@ def enumerate_uep_candidates(bitrate_kbps: int, level: int
     signal*: the correct PI layout is the only one whose depuncture
     keeps the Viterbi decode aligned (``ops.uep_probe``).  For
     (192 kbit/s, P2) this yields ~2.4k candidates — one batched
-    chunked Viterbi call on TPU.
+    batched Viterbi call on the device.
     """
     if (bitrate_kbps, level) in UEP_PROFILES:
         raise ValueError(f"({bitrate_kbps}, P{level}) is bundled; "

@@ -9,16 +9,15 @@ import pytest
 from dabtools_tpu import constants as C
 from dabtools_tpu.eti.parse import EtiParser
 from dabtools_tpu.fic.config import Ensemble, Service, ServiceComponent, Subchannel
-from dabtools_tpu.fic.fig import build_fibs_for_ensemble
 from dabtools_tpu.mod.impairments import awgn, carrier_offset, timing_offset
-from dabtools_tpu.mod.modulator import Modulator, SubchannelSource
+from dabtools_tpu.mod.modulator import modulate_ensemble
 from dabtools_tpu.models.receiver import DabReceiver
 
 
 def build_ensemble():
     return Ensemble(
         eid=0x4FFF,
-        label="TPU DAB",
+        label="TEST DAB",
         subchannels=(Subchannel.eep(1, 0, 3, "A", 64),),
         services=(Service(sid=0x1234, label="SVC ONE", components=(
             ServiceComponent(tmid=0, subchid=1, ascty=0),)),),
@@ -26,29 +25,9 @@ def build_ensemble():
 
 
 def modulate(ens, n_frames, seed=0, payload_subchids=(1,)):
-    rng = np.random.default_rng(seed)
-    subs = [SubchannelSource(s.start_cu, s.profile)
-            for s in ens.sorted_subchannels()]
-    mod = Modulator(subs)
-    order = [s.subchid for s in ens.sorted_subchannels()]
-    n_cifs = n_frames * C.MODE_I.n_cifs
-    payloads = {
-        sc: np.unpackbits(
-            rng.integers(0, 256,
-                         size=(n_cifs, ens.subchannel(sc).data_bytes),
-                         dtype=np.uint8), axis=-1)
-        for sc in order}
-
-    def fibs_fn(f):
-        return build_fibs_for_ensemble(ens, f)
-
-    def payload_fn(f, i):
-        sc = order[i]
-        return payloads[sc][f * 4:(f + 1) * 4]
-
-    x = mod.frames(n_frames, fibs_fn, payload_fn)
-    payload_bytes = {sc: np.packbits(payloads[sc], axis=-1)
-                     for sc in order}
+    """(IQ, {subchid: payload bytes per CIF}) of ``ens`` with random
+    payloads (``payload_subchids`` is accepted for older callers)."""
+    x, payload_bytes, _ = modulate_ensemble(ens, n_frames, seed)
     return x, payload_bytes
 
 

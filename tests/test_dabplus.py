@@ -107,3 +107,26 @@ class TestSuperframe:
         assert len(adts) == len(au) + 7
         frame_len = ((adts[3] & 0x03) << 11) | (adts[4] << 3) | (adts[5] >> 5)
         assert frame_len == len(adts)
+
+
+def test_modulate_ensemble_carries_dabplus_superframes():
+    """The shared modulator helper: the DAB+ sub-channel's payload rows
+    are real superframes whose access units decode, in order, to the AUs
+    it returns; the other sub-channel carries random bytes."""
+    from dabtools_tpu.fic.config import (Ensemble, Service,
+                                         ServiceComponent, Subchannel)
+    from dabtools_tpu.mod.modulator import modulate_ensemble
+
+    ens = Ensemble(
+        eid=0xD0D0, label="DAB+ HELPER",
+        subchannels=(Subchannel.eep(0, 0, 3, "A", 64),
+                     Subchannel.eep(1, 48, 3, "A", 72)),
+        services=(Service(sid=2, components=(
+            ServiceComponent(tmid=0, subchid=1, ascty=63),)),))
+    x, payload, aus = modulate_ensemble(ens, 6, seed=3, dabplus_subch=1)
+    assert x.dtype == np.complex64 and x.size == 6 * C.MODE_I.frame_size
+    assert payload[0].shape == (24, ens.subchannel(0).data_bytes)
+    sfd = SuperframeDecoder(72)
+    got = [au for row in payload[1] for au in sfd.feed(row.tobytes())]
+    assert got and all(au.crc_ok for au in got)
+    assert [au.data for au in got] == aus[: len(got)]

@@ -48,7 +48,7 @@ def test_scan_finds_ensembles(tmp_path):
     a_line = next(l for l in lines if l.startswith("6A"))
     c_line = next(l for l in lines if l.startswith("6C"))
     b_line = next(l for l in lines if l.startswith("6B"))
-    assert "0x4FFF" in a_line and "TPU DAB" in a_line
+    assert "0x4FFF" in a_line and "TEST DAB" in a_line
     assert "0xB10C" in c_line and "BLOCK B" in c_line
     assert "--" in b_line                      # empty block stays empty
     assert "2 ensemble(s) found" in r.stderr

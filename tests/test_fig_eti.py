@@ -12,7 +12,7 @@ from dabtools_tpu.utils.crc import crc16_ok
 def example_ensemble():
     return Ensemble(
         eid=0x4FFF,
-        label="TPU DAB",
+        label="TEST DAB",
         subchannels=(
             Subchannel.eep(1, 0, 3, "A", 64),      # 48 CUs
             Subchannel.eep(5, 48, 1, "B", 96),     # 81 CUs

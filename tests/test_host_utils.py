@@ -1,4 +1,5 @@
 import numpy as np
+import pytest
 
 from dabtools_tpu.mod.convcode import conv_encode, output_table, viterbi_decode_ref
 from dabtools_tpu.tables.puncturing import fic_puncture_mask
@@ -113,20 +114,35 @@ class TestConvCode:
             assert (decoded == best).all()
 
 
-def test_enable_persistent_cache(tmp_path, monkeypatch):
-    """Cache helper: creates the dir + sets jax config; env 'off' disables."""
+@pytest.mark.parametrize("env_dir", [True, False])
+def test_enable_persistent_cache(tmp_path, monkeypatch, env_dir):
+    """JAX_COMPILATION_CACHE_DIR set: used as is, no directory set in
+    code.  Unset: the cache goes to the fixed <repo>/.jax_cache."""
+    import pathlib
+
     import jax
 
-    from dabtools_tpu.utils.jitcache import enable_persistent_cache
+    from dabtools_tpu.utils import jitcache
 
-    monkeypatch.setenv("DABTOOLS_JIT_CACHE", "off")
-    assert enable_persistent_cache() is False
-
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    assert jitcache._DEFAULT == repo / ".jax_cache"
+    updates = []
+    real_update = jax.config.update
+    monkeypatch.setattr(jax.config, "update", lambda k, v: (
+        updates.append(k), real_update(k, v)))
     target = tmp_path / "jc"
-    monkeypatch.setenv("DABTOOLS_JIT_CACHE", str(target))
-    assert enable_persistent_cache() is True
-    assert target.is_dir()
-    assert jax.config.jax_compilation_cache_dir == str(target)
+    if env_dir:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(target))
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        monkeypatch.setattr(jitcache, "_DEFAULT", target)
+    assert jitcache.enable_persistent_cache() == str(target)
+    if env_dir:
+        assert "jax_compilation_cache_dir" not in updates
+    else:
+        assert updates == ["jax_compilation_cache_dir"]
+        assert target.is_dir()
+        assert jax.config.jax_compilation_cache_dir == str(target)
     # compiling through the cache must not change results
     import jax.numpy as jnp
     import numpy as np
@@ -134,4 +150,4 @@ def test_enable_persistent_cache(tmp_path, monkeypatch):
     np.testing.assert_array_equal(np.asarray(f(jnp.arange(4))),
                                   [1, 3, 5, 7])
     # tmp_path is deleted after the test: detach the global config again
-    jax.config.update("jax_compilation_cache_dir", None)
+    real_update("jax_compilation_cache_dir", None)

@@ -1,5 +1,5 @@
 """Launch the 2-process jax.distributed time-block receiver test
-(the localhost stand-in for multi-host pod slices, SURVEY.md s4 item 4)."""
+(the localhost stand-in for multi-process runs, SURVEY.md s4 item 4)."""
 
 import pathlib
 import socket

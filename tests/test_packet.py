@@ -157,7 +157,7 @@ def test_packet_mot_closed_loop():
     rng = np.random.default_rng(4)
     objects = [("logo.png", rng.integers(0, 256, 310, dtype=np.uint8)
                 .tobytes()),
-               ("news.txt", b"packet mode over TPU decode " * 10)]
+               ("news.txt", b"packet mode over GPU decode " * 10)]
     mot = MotEncoder(seg_size=64)
     enc = PacketEncoder(address=pc.address, packet_size=96)
     for dg in mot.carousel_groups(objects):

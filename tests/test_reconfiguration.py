@@ -13,7 +13,7 @@ from tests.test_closed_loop import build_ensemble, modulate
 
 def test_mux_reconfiguration():
     ens1 = build_ensemble()                              # subch 1 @ CU 0
-    ens2 = Ensemble(eid=ens1.eid, label="TPU DAB",
+    ens2 = Ensemble(eid=ens1.eid, label="TEST DAB",
                     subchannels=(Subchannel.eep(3, 96, 2, "B", 64),))
     # Phase 2 must outlast the merged transient: old FIG subchannel
     # entries age out max_subch_age_fibs=120 FIB-feeds (~2.5 4-frame
@@ -56,7 +56,7 @@ def test_mux_revert_a_b_a():
     """A -> B -> A: the FIB dedup cache must not freeze the parser on B
     (cache is cleared at every activation)."""
     ens_a = build_ensemble()
-    ens_b = Ensemble(eid=ens_a.eid, label="TPU DAB",
+    ens_b = Ensemble(eid=ens_a.eid, label="TEST DAB",
                      subchannels=(Subchannel.eep(3, 96, 2, "B", 64),))
     # each phase outlasts the (single-tick-accurate) aging transient —
     # see the note in test_mux_reconfiguration

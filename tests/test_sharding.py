@@ -186,3 +186,13 @@ def test_timeblock_mode_iii_rejects_misaligned_shards():
     with pytest.raises(ValueError, match="multiples of 3"):
         timeblock_receiver(mesh, ens, mode=C.MODES["III"],
                            frames_per_shard=20, warmup_frames=18)
+
+
+def test_dryrun_multichip_four_devices(capsys):
+    """What ``chip_smoke.py --four-cards`` runs on four GPUs: the 2 x 2
+    channels x time mesh, bit-exact against the modulator, the ETI host
+    half and one device's process_block on the same span."""
+    from __graft_entry__ import dryrun_multichip
+
+    dryrun_multichip(4)
+    assert "equal to one device's process_block" in capsys.readouterr().out

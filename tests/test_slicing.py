@@ -1,6 +1,6 @@
 """window_slices: bit-identity with lax.dynamic_slice at every vmap depth.
 
-The helper exists purely as a TPU-layout realization (ops/slicing.py);
+The helper exists purely as a gather-layout realization (ops/slicing.py);
 its contract is that the extracted values are EXACTLY what a per-start
 ``lax.dynamic_slice`` would produce, including the start-clamping
 behavior, no matter how many vmap levels wrap it.

@@ -76,7 +76,7 @@ def test_etiinfo_summary(tmp_path):
         [sys.executable, "-m", "dabtools_tpu.cli.etiinfo", str(p)],
         capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert "ensemble: 0x4FFF 'TPU DAB'" in r.stdout
+    assert "ensemble: 0x4FFF 'TEST DAB'" in r.stdout
     assert "subch  1: CU   0+48  EEP-3A 64 kbit/s" in r.stdout
     assert "header CRC failures: 0" in r.stdout
     assert "FCT discontinuities: 0" in r.stdout

@@ -1,14 +1,12 @@
-"""Measured 2-process scaling datum for the time-block receiver
-(VERDICT r2 item 5; BASELINE config #5's localhost stand-in).
+"""Two-process scaling datum for the time-block receiver on CPU devices
+(BASELINE config #5's localhost stand-in).
 
-Real pod slices are unavailable in this environment, so this measures the
-thing that IS measurable here: sustained decode throughput of
+Measures sustained decode throughput of
 `parallel.timeblock.timeblock_receiver` at 1 process vs 2 localhost
 `jax.distributed` processes (CPU devices), where the shard-boundary halo
-`ppermute` crosses a real process boundary over gRPC — the DCN-analog
-communication path.  Per-device work is held constant (each time shard
-decodes warmup+f_own frames per call), so ideal scaling doubles the
-span throughput at 2 processes.
+`ppermute` crosses a real process boundary over gRPC.  Per-device work is
+held constant (each time shard decodes warmup+f_own frames per call), so
+ideal scaling doubles the span throughput at 2 processes.
 
 Caveat printed with the result: this host has few cores, so the 2-process
 run contends for CPU with XLA compute itself — the efficiency reported is
